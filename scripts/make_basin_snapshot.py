@@ -1,7 +1,7 @@
 """Generate the committed float64-oracle parity snapshot for the bundled
 basin (tests/data/basin_float_snapshot.npz).
 
-Runs the NumPy float64 oracles (descriptools_tpu.oracle — the executable
+Runs the NumPy float64 oracles (descriptools_jax.oracle — the executable
 spec transcribed from the reference's *_sequential_jit twins) over the FULL
 2178x1534 basin, then stores every descriptor downsampled [::4, ::4] as
 float32 (4x4 stride = 6.3% of cells, ~210k samples per raster; float32
@@ -23,9 +23,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from descriptools_tpu import oracle
-from descriptools_tpu.io import load_example_inputs
-from descriptools_tpu.pipeline import PipelineConfig
+from descriptools_jax import oracle
+from descriptools_jax.io import load_example_inputs
+from descriptools_jax.pipeline import PipelineConfig
 
 EXAMPLE = "/root/reference/Example"
 STRIDE = 4

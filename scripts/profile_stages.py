@@ -1,7 +1,7 @@
 """Per-stage wall-clock breakdown of the descriptor suite on the default
-device.  Run on the TPU to see where the suite time goes.
+device.  Run on a GPU to see where the suite time goes.
 
-Usage: python scripts/profile_stages.py [--synthetic N]
+Usage: python scripts/profile_stages.py [--synthetic N | --example DIR]
 """
 
 import os
@@ -13,42 +13,42 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.ops import (
+from descriptools_jax.constants import NODATA
+from descriptools_jax.ops import (
     downslope,
     ln_hl_h,
     modified_topographic_index,
     slope,
     topographic_index,
 )
-from descriptools_tpu.ops.flow import hand_and_river_fac
-from descriptools_tpu.ops.gfi import gfi
-from descriptools_tpu.pipeline import (
-    PipelineConfig,
-    _engine_downslope,
-    _engine_flow,
-    descriptor_suite,
-)
-from descriptools_tpu.utils.timing import timeit
+from descriptools_jax.ops.flow import hand_and_river_fac
+from descriptools_jax.ops.gfi import gfi
+from descriptools_jax.ops.flow import flow_distance_index
+from descriptools_jax.pipeline import PipelineConfig, descriptor_suite
+from descriptools_jax.utils.timing import timeit
 
 
 def main():
     if len(sys.argv) >= 3 and sys.argv[1] == "--synthetic":
-        from descriptools_tpu.utils.synthetic import synthetic_basin
+        from descriptools_jax.utils.synthetic import synthetic_basin
 
         size = int(sys.argv[2])
         dem, fdr, river, fac = synthetic_basin(size, size, seed=0)
         dem = dem.astype(np.int32)
         fac = fac.astype(np.int32)
-    else:
-        from descriptools_tpu.io import load_example_inputs
+    elif len(sys.argv) >= 3 and sys.argv[1] == "--example":
+        from descriptools_jax.io import load_example_inputs
 
-        data = load_example_inputs("/root/reference/Example")
+        data = load_example_inputs(sys.argv[2])
         dem = data["dem"].astype(np.int32)
         fdr, fac, river = data["fdr"], data["fac"].astype(np.int32), data["river"]
+    else:
+        sys.exit(__doc__)
+
+    from descriptools_jax.utils.device import require_gpu
 
     cfg = PipelineConfig()
-    dev = jax.devices()[0]
+    dev = require_gpu()
     dem_d, fdr_d, fac_d, river_d = (
         jax.device_put(jnp.asarray(a), dev) for a in (dem, fdr, fac, river)
     )
@@ -58,7 +58,9 @@ def main():
 
     sl = slope(dem_f, cfg.px)
     sl_rad = jnp.where(dem_f == NODATA, jnp.float32(NODATA), jnp.arctan(sl / 100.0))
-    fdist, indices = _engine_flow(fdr_d, river_d, cfg)
+    fdist, indices = flow_distance_index(
+        fdr_d, river_d, cfg.px, max_steps=cfg.flow_max_steps
+    )
     hand, river_fac = hand_and_river_fac(dem_d, fac_d, indices)
 
     stages["slope"] = timeit(lambda: slope(dem_f, cfg.px))
@@ -66,9 +68,13 @@ def main():
     stages["mod_twi"] = timeit(
         lambda: modified_topographic_index(fac_d, sl_rad, cfg.px, cfg.n_topo)
     )
-    # Walks via the SAME engine tier the suite selects (pallas on TPU).
-    stages["downslope"] = timeit(lambda: _engine_downslope(dem_f, fdr_d, cfg))
-    stages["flow_distance_index"] = timeit(lambda: _engine_flow(fdr_d, river_d, cfg))
+    stages["downslope"] = timeit(lambda: downslope(
+        dem_f, fdr_d, cfg.px, cfg.elevation_difference,
+        max_steps=cfg.downslope_max_steps,
+    ))
+    stages["flow_distance_index"] = timeit(lambda: flow_distance_index(
+        fdr_d, river_d, cfg.px, max_steps=cfg.flow_max_steps
+    ))
     stages["hand_and_river_fac"] = timeit(
         lambda: hand_and_river_fac(dem_d, fac_d, indices)
     )

@@ -2,20 +2,18 @@
 
 BASELINE.json's north star asks for >=80 % weak-scaling efficiency at N>=2
 workers: the per-worker problem size stays fixed while the mesh grows, so
-ideal scaling keeps wall-clock constant.  Real multi-chip hardware is not
-available in this environment, so this harness runs the *identical* sharded
-program (shard_map + ppermute halo exchange + boundary-graph ring
+ideal scaling keeps wall-clock constant.  This harness runs the *identical*
+sharded program (shard_map + ppermute halo exchange + boundary-graph ring
 reduction) over a virtual CPU device mesh — it measures the framework's
 scaling *behaviour* (collective volume, boundary-graph growth, padding
-waste), not ICI silicon.  On a pod slice the same script runs unchanged on
-real chips.
+waste), not any accelerator or interconnect.
 
 Usage:  python scripts/weak_scaling.py [--per-shard 512 1024] [--iters 5]
 
 Prints one line per (mesh, size) plus a JSON summary (medians of --iters
 timed runs) with parallel efficiency relative to the single-device run and
 the analytic collective volume per suite invocation (halo strips + ring
-all-gather), and writes WEAK_SCALING.json at the repo root.
+all-gather).
 """
 
 import argparse
@@ -38,10 +36,10 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-from descriptools_tpu.parallel import make_mesh, sharded_suite
-from descriptools_tpu.pipeline import PipelineConfig
-from descriptools_tpu.utils.synthetic import synthetic_basin
-from descriptools_tpu.utils.timing import sync, timeit
+from descriptools_jax.parallel import make_mesh, sharded_suite
+from descriptools_jax.pipeline import PipelineConfig
+from descriptools_jax.utils.synthetic import synthetic_basin
+from descriptools_jax.utils.timing import timeit
 
 
 def timed_phases(staged, shape, fac0, cfg, mesh, iters):
@@ -56,7 +54,7 @@ def timed_phases(staged, shape, fac0, cfg, mesh, iters):
         def hook(name, compute):
             t0 = time.perf_counter()
             out = compute()
-            sync(out)
+            jax.block_until_ready(out)
             stages[name] = time.perf_counter() - t0
             return out
 
@@ -153,7 +151,7 @@ def main():
     devices = jax.devices()
     shapes = [(1, 1), (1, 2), (2, 2), (2, 4)]
     shapes = [s for s in shapes if s[0] * s[1] <= len(devices)]
-    cfg = PipelineConfig(engine="xla")
+    cfg = PipelineConfig()
 
     results = []
     for per_shard in args.per_shard:
@@ -168,7 +166,7 @@ def main():
                 # when oversubscribed virtual devices reach a collective too
                 # far apart — a hard host limit, not a framework one.
                 print(f"skip mesh {ny}x{nx} per-shard {per_shard}: "
-                      "XLA:CPU collective-rendezvous abort risk on 2 cores")
+                      "XLA:CPU collective-rendezvous abort risk")
                 continue
             mesh = make_mesh(shape=(ny, nx), devices=devices[: ny * nx])
             rows, cols = per_shard * ny, per_shard * nx
@@ -181,8 +179,8 @@ def main():
                 warmup=1, iters=args.iters,
             )
 
-            from descriptools_tpu.parallel.sharded import _staged
-            from descriptools_tpu.constants import NODATA
+            from descriptools_jax.parallel.sharded import _staged
+            from descriptools_jax.constants import NODATA
 
             staged = (
                 _staged(dem, mesh, NODATA),
@@ -248,7 +246,7 @@ def main():
 
     # A virtual n-device CPU mesh on an m-core host serialises at least
     # n/m-fold, so raw efficiency is bounded by m/n — report the bound so
-    # the numbers read as overhead-vs-serialisation, not ICI scaling.
+    # the numbers read as overhead-vs-serialisation, not device scaling.
     ncores = os.cpu_count() or 1
     for r in results:
         ceiling = min(1.0, ncores / r["devices"])
@@ -262,7 +260,7 @@ def main():
         "host_cores": ncores,
         "note": (
             "virtual CPU devices measure framework overhead "
-            "(collectives, padding, boundary graph), not ICI scaling; "
+            "(collectives, padding, boundary graph), not device scaling; "
             "efficiency is capped at host_cores/devices here"
         ),
         "attribution": (
@@ -271,7 +269,7 @@ def main():
             "elementwise sweeps on the same decomposition: vs_null ~ 1.0 "
             "means the phase loses nothing to decomposition or "
             "communication beyond what ANY shard_map pays on this "
-            "oversubscribed 2-core host (scheduling + barrier stragglers). "
+            "oversubscribed host (scheduling + barrier stragglers). "
             "decomposition_overhead_vs_single_device is the direct cost "
             "statement: the sharded program on N virtual devices vs the "
             "SAME global grid on one device.  Round 5 fused the slope "
@@ -285,10 +283,6 @@ def main():
         "weak_scaling": results,
     }
     summary["conclusion"] = derive_conclusion(results)
-    out = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "WEAK_SCALING.json")
-    with open(out, "w") as fh:
-        json.dump(summary, fh, indent=1)
     print(json.dumps(summary))
 
 

@@ -3,7 +3,7 @@
 argv: port pid nprocs ckpt_dir kill_stage
   kill_stage != "-" : run sharded_suite_staged with ckpt_dir and os._exit(17)
                       right after that stage's checkpoint completes (the
-                      whole-job preemption a pod restart recovers from).
+                      whole-job preemption a cluster restart recovers from).
   kill_stage == "-" : run to completion, verify every integer output bitwise
                       against the single-device engines and the staged
                       classification against the host float64 classifier.
@@ -35,12 +35,12 @@ def main():
 
     import numpy as np
 
-    from descriptools_tpu import oracle
-    from descriptools_tpu.constants import NODATA
-    from descriptools_tpu.parallel import make_mesh, sharded_suite_staged
-    from descriptools_tpu.parallel import ckpt as shckpt
-    from descriptools_tpu.pipeline import PipelineConfig
-    from descriptools_tpu.utils.synthetic import synthetic_basin
+    from descriptools_jax import oracle
+    from descriptools_jax.constants import NODATA
+    from descriptools_jax.parallel import make_mesh, sharded_suite_staged
+    from descriptools_jax.parallel import ckpt as shckpt
+    from descriptools_jax.pipeline import PipelineConfig
+    from descriptools_jax.utils.synthetic import synthetic_basin
 
     if kill_stage != "-":
         orig = shckpt.save_stage_sharded
@@ -74,10 +74,10 @@ def main():
     )
 
     # Completion path: verify like mp_worker (integers bitwise).
-    from descriptools_tpu.ops import downslope, flow_distance_index
-    from descriptools_tpu.ops.flow import hand_and_river_fac
-    from descriptools_tpu.parallel.mesh import pad_to_mesh
-    from descriptools_tpu.pipeline import classify_flood
+    from descriptools_jax.ops import downslope, flow_distance_index
+    from descriptools_jax.ops.flow import hand_and_river_fac
+    from descriptools_jax.parallel.mesh import pad_to_mesh
+    from descriptools_jax.pipeline import classify_flood
 
     demp = pad_to_mesh(rasters["dem"], mesh, NODATA)
     fdrp = pad_to_mesh(rasters["fdr"], mesh, 0)

@@ -2,7 +2,7 @@
 
 Launched by tests/test_multiprocess.py as one of N processes, each owning
 8//N virtual CPU devices.  Initialises the distributed runtime (the same
-handshake a TPU pod uses over DCN), stages a synthetic basin per-host via
+handshake a multi-host cluster uses), stages a synthetic basin per-host via
 sharded_suite_staged — no process materialises a global raster — and checks
 every ADDRESSABLE shard of every output against a locally computed
 single-device expectation (the grid is tiny, so each worker can afford the
@@ -34,13 +34,13 @@ def main():
 
     import numpy as np
 
-    from descriptools_tpu.constants import NODATA
-    from descriptools_tpu.ops import downslope, flow_distance_index, slope
-    from descriptools_tpu.ops.flow import hand_and_river_fac
-    from descriptools_tpu.parallel import make_mesh, sharded_suite_staged
-    from descriptools_tpu.parallel.mesh import pad_to_mesh
-    from descriptools_tpu.pipeline import PipelineConfig
-    from descriptools_tpu.utils.synthetic import synthetic_basin
+    from descriptools_jax.constants import NODATA
+    from descriptools_jax.ops import downslope, flow_distance_index, slope
+    from descriptools_jax.ops.flow import hand_and_river_fac
+    from descriptools_jax.parallel import make_mesh, sharded_suite_staged
+    from descriptools_jax.parallel.mesh import pad_to_mesh
+    from descriptools_jax.pipeline import PipelineConfig
+    from descriptools_jax.utils.synthetic import synthetic_basin
 
     assert jax.process_count() == nprocs, jax.process_count()
     assert len(jax.devices()) == N_GLOBAL_DEVICES, len(jax.devices())
@@ -52,7 +52,7 @@ def main():
     cfg = PipelineConfig()
     # Synthetic flood benchmark derived from the (deterministic) HAND so the
     # staged classification has a meaningful threshold to find.
-    from descriptools_tpu import oracle
+    from descriptools_jax import oracle
 
     _, idx0 = oracle.flow_distance_index_oracle(fdr, river, cfg.px)
     hand0 = oracle.hand_oracle(dem.astype(np.int32), idx0)
@@ -103,7 +103,7 @@ def main():
     # Staged classification (psum confusion histograms, parallel/classify.py)
     # must reproduce the host float64 classifier exactly — threshold, scores,
     # and the class map bitwise per shard (reference evaluation.py:5-211).
-    from descriptools_tpu.pipeline import classify_flood
+    from descriptools_jax.pipeline import classify_flood
 
     floodp = pad_to_mesh(flood.astype(np.int32), mesh, NODATA)
     th, corr, fitv, cmap = classify_flood(exp["hand"], floodp)

@@ -1,7 +1,7 @@
 """Basin-scale float parity: the production engines must match the
 committed float64-oracle snapshot of the bundled 2178x1534 basin
 (tests/data/basin_float_snapshot.npz, generated by
-scripts/make_basin_snapshot.py from descriptools_tpu.oracle — the spec
+scripts/make_basin_snapshot.py from descriptools_jax.oracle — the spec
 transcribed from the reference's *_sequential_jit twins).
 
 This turns README's "~1e-5 relative" claim into a test: every float
@@ -15,8 +15,8 @@ import os
 import numpy as np
 import pytest
 
-from descriptools_tpu.io import load_example_inputs
-from descriptools_tpu.pipeline import PipelineConfig, descriptor_suite
+from descriptools_jax.io import load_example_inputs
+from descriptools_jax.pipeline import PipelineConfig, descriptor_suite
 
 EXAMPLE = "/root/reference/Example"
 SNAP_PATH = os.path.join(
@@ -45,13 +45,15 @@ def snap():
 def suite():
     import jax.numpy as jnp
 
+    if not os.path.isdir(EXAMPLE):
+        pytest.skip("bundled basin missing")
     data = load_example_inputs(EXAMPLE)
     out = descriptor_suite(
         jnp.asarray(data["dem"], jnp.int32),
         jnp.asarray(data["fdr"]),
         jnp.asarray(data["fac"], jnp.int32),
         jnp.asarray(data["river"]),
-        PipelineConfig(engine="xla"),
+        PipelineConfig(),
     )
     return {k: np.asarray(v) for k, v in out.items()}
 

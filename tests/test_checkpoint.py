@@ -7,13 +7,13 @@ from dataclasses import replace
 import numpy as np
 import pytest
 
-import descriptools_tpu.pipeline as pl
-from descriptools_tpu.pipeline import (
+import descriptools_jax.pipeline as pl
+from descriptools_jax.pipeline import (
     PipelineConfig,
     descriptor_suite,
     run_suite_checkpointed,
 )
-from descriptools_tpu.utils.synthetic import synthetic_basin
+from descriptools_jax.utils.synthetic import synthetic_basin
 
 KEYS = (
     "slope", "twi", "mod_twi", "downslope",
@@ -54,7 +54,7 @@ def test_kill_and_resume_bitwise(tmp_path, basin, monkeypatch):
     def dying_flow(*a, **k):
         raise RuntimeError("simulated preemption")
 
-    monkeypatch.setattr(pl, "_engine_flow", dying_flow)
+    monkeypatch.setattr(pl, "flow_distance_index", dying_flow)
     with pytest.raises(RuntimeError, match="simulated preemption"):
         run_suite_checkpointed(dem, fdr, fac, river, cfg, ckdir)
     monkeypatch.undo()
@@ -77,11 +77,11 @@ sys.path.insert(0, {repo!r})
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
-import descriptools_tpu.pipeline as pl
-from descriptools_tpu.utils.synthetic import synthetic_basin
+import descriptools_jax.pipeline as pl
+from descriptools_jax.utils.synthetic import synthetic_basin
 dem, fdr, river, fac = synthetic_basin(64, 96, seed=11)
 if os.environ.get("CKPT_DIE") == "1":
-    pl._engine_flow = lambda *a, **k: os._exit(3)
+    pl.flow_distance_index = lambda *a, **k: os._exit(3)
 out = pl.run_suite_checkpointed(
     dem.astype(np.int32), fdr, fac.astype(np.int32), river,
     pl.PipelineConfig(), sys.argv[1],
@@ -93,7 +93,7 @@ np.savez(sys.argv[2], **{{k: np.asarray(v) for k, v in out.items()}})
 def test_real_process_kill_and_resume(tmp_path, basin):
     """A hard process death (os._exit, no cleanup) mid-pipeline must leave a
     resumable checkpoint dir; the rerun reproduces an uninterrupted run
-    bitwise — the restart story a preempted pod job needs."""
+    bitwise — the restart story a preempted cluster job needs."""
     import os
     import subprocess
     import sys

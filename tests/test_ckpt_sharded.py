@@ -1,7 +1,7 @@
 """Shard-aware checkpoint/resume for the staged sharded suite
 (parallel/ckpt.py): a REAL multi-process kill after a stage checkpoint,
 then resume — with the same process count and with a different one (the
-pod-repartition case) — completing bitwise without recomputing the
+cluster-repartition case) — completing bitwise without recomputing the
 checkpointed stages.  Round-2 verdict, Missing #4 / SURVEY §5.
 """
 
@@ -89,11 +89,11 @@ def test_manifest_guards_mismatched_resume(tmp_path):
     """Resuming with a different mesh decomposition must fail loudly."""
     import numpy as np
 
-    from descriptools_tpu import oracle
-    from descriptools_tpu.constants import NODATA
-    from descriptools_tpu.parallel import make_mesh, sharded_suite_staged
-    from descriptools_tpu.pipeline import PipelineConfig
-    from descriptools_tpu.utils.synthetic import synthetic_basin
+    from descriptools_jax import oracle
+    from descriptools_jax.constants import NODATA
+    from descriptools_jax.parallel import make_mesh, sharded_suite_staged
+    from descriptools_jax.pipeline import PipelineConfig
+    from descriptools_jax.utils.synthetic import synthetic_basin
 
     dem, fdr, river, fac = synthetic_basin(45, 53, seed=5)
     rasters = dict(

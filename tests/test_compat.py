@@ -6,9 +6,9 @@ checks every stage against the oracles.
 
 import numpy as np
 
-from descriptools_tpu import compat, oracle
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.utils.synthetic import synthetic_basin
+from descriptools_jax import compat, oracle
+from descriptools_jax.constants import NODATA
+from descriptools_jax.utils.synthetic import synthetic_basin
 
 PX = 12.5
 

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from descriptools_tpu import d8
-from descriptools_tpu.constants import D8_CODES, D8_DX, D8_DY, NODATA
-from descriptools_tpu.utils.synthetic import d8_from_dem, synthetic_dem
+from descriptools_jax import d8
+from descriptools_jax.constants import D8_CODES, D8_DX, D8_DY, NODATA
+from descriptools_jax.utils.synthetic import d8_from_dem, synthetic_dem
 
 
 def test_decode_all_codes():

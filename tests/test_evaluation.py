@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from descriptools_tpu import evaluation, oracle
-from descriptools_tpu.constants import NODATA
+from descriptools_jax import evaluation, oracle
+from descriptools_jax.constants import NODATA
 
 
 @pytest.fixture(scope="module")

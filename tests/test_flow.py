@@ -4,10 +4,10 @@ termination branches: river absorption, dead ends, border exits, cycles."""
 import numpy as np
 import pytest
 
-from descriptools_tpu import oracle
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.ops import flow_distance_index, flow_hand_index, hand_calculator
-from descriptools_tpu.utils.synthetic import synthetic_basin
+from descriptools_jax import oracle
+from descriptools_jax.constants import NODATA
+from descriptools_jax.ops import flow_distance_index, flow_hand_index, hand_calculator
+from descriptools_jax.utils.synthetic import synthetic_basin
 
 PX = 12.5
 
@@ -126,3 +126,78 @@ def test_hybrid_equals_doubling(basin):
     d2, i2 = flow_distance_index(fdr, river, PX, method="doubling")
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
     np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), rtol=1e-4, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# Long-path terrains, each engine against the float64 oracle
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("method", ["hybrid", "doubling"])
+def test_tall_lateral_channel(method):
+    """~500-step paths: east along each row, then north up the last column
+    to the river — walks far past the compaction budget."""
+    rows, cols = 384, 128
+    fdr = np.full((rows, cols), 1, np.uint8)  # east
+    fdr[:, -1] = 64  # last column: north
+    river = np.zeros((rows, cols), np.int8)
+    river[0, -1] = 1
+    d, i = flow_distance_index(fdr, river, PX, max_steps=1000, method=method)
+    want_d, want_i, trunc = oracle.flow_distance_index_oracle_trunc(
+        fdr, river, PX, max_steps=1000
+    )
+    assert not trunc.any()
+    np.testing.assert_array_equal(np.asarray(i), want_i)
+    np.testing.assert_allclose(np.asarray(d), want_d, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["hybrid", "doubling"])
+def test_chain_longer_than_2pow15_steps(method):
+    """One boustrophedon path of 40000 > 2^15 cardinal steps: every cell
+    drains to the river at its end, at exactly (steps to go) * px."""
+    rows = cols = 200
+    fdr = np.zeros((rows, cols), np.uint8)
+    fdr[0::2, :] = 1  # east on even rows
+    fdr[1::2, :] = 16  # west on odd rows
+    fdr[0::2, -1] = 4  # south at the east end of even rows
+    fdr[1::2, 0] = 4  # south at the west end of odd rows
+    river = np.zeros((rows, cols), np.int8)
+    river[-1, 0] = 1
+    d, i = flow_distance_index(fdr, river, PX, max_steps=60000, method=method)
+
+    rr = np.arange(rows)[:, None]
+    cc = np.arange(cols)[None, :]
+    pos = rr * cols + np.where(rr % 2 == 0, cc, cols - 1 - cc)
+    steps = rows * cols - 1 - pos
+    assert steps.max() > (1 << 15)
+    np.testing.assert_array_equal(np.asarray(i), (rows - 1) * cols)
+    np.testing.assert_array_equal(np.asarray(d), (steps * PX).astype(np.float32))
+
+
+def test_flow_oracle_twin_matches_loop_oracle(basin):
+    _, fdr, river, _ = basin
+    want_d, want_i = oracle.flow_distance_index_oracle(fdr, river, PX)
+    got_d, got_i, trunc = oracle.flow_distance_index_oracle_trunc(
+        fdr, river, PX
+    )
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_d, want_d)
+    assert trunc.dtype == bool
+
+
+def test_flow_oracle_twin_flags_window_edge_walks(basin):
+    """On a window of a larger grid, non-trunc cells match the full-grid
+    oracle (indices translated to global coordinates)."""
+    _, fdr, river, _ = basin
+    want_d, want_i = oracle.flow_distance_index_oracle(fdr, river, PX)
+    ys, ye, xs, xe = 20, 70, 30, 90
+    got_d, got_i, trunc = oracle.flow_distance_index_oracle_trunc(
+        fdr[ys:ye, xs:xe], river[ys:ye, xs:xe], PX
+    )
+    cols, wcols = fdr.shape[1], xe - xs
+    glob = np.where(got_i == NODATA, NODATA,
+                    (ys + got_i // wcols) * cols + xs + got_i % wcols)
+    ok = ~trunc
+    assert trunc.any() and ok.any()
+    np.testing.assert_array_equal(glob[ok], want_i[ys:ye, xs:xe][ok])
+    np.testing.assert_array_equal(got_d[ok], want_d[ys:ye, xs:xe][ok])

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from descriptools_tpu.io import load_example_inputs, normalise_nodata, read_raster, write_raster
+from descriptools_jax.io import load_example_inputs, normalise_nodata, read_raster, write_raster
 
 EXAMPLE = "/root/reference/Example"
 

@@ -2,7 +2,7 @@
 staged sharded suite (tests/mp_worker.py) and verify their addressable
 shards.  This is the multi-host story the reference never had (it is
 single-GPU; SURVEY §2.10) exercised for real — process-group init, per-host
-staging, cross-process collectives (Gloo on CPU, ICI/DCN on a pod).
+staging, cross-process collectives (Gloo on CPU, NCCL across GPUs).
 
 Workers regenerate identical inputs per process and compare against the
 single-device engines, so passing at nprocs=1 and nprocs=2 proves bitwise

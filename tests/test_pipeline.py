@@ -11,14 +11,14 @@ import os
 import numpy as np
 import pytest
 
-from descriptools_tpu import oracle
-from descriptools_tpu.pipeline import (
+from descriptools_jax import oracle
+from descriptools_jax.pipeline import (
     PipelineConfig,
     classify_flood,
     descriptor_suite,
     run_example,
 )
-from descriptools_tpu.utils.synthetic import synthetic_basin
+from descriptools_jax.utils.synthetic import synthetic_basin
 
 EXAMPLE = "/root/reference/Example"
 
@@ -55,7 +55,7 @@ def test_classify_flood_matches_oracle():
 
 @pytest.mark.skipif(not os.path.isdir(EXAMPLE), reason="bundled basin missing")
 def test_golden_bundled_basin_bitwise():
-    from descriptools_tpu.io import read_raster
+    from descriptools_jax.io import read_raster
 
     out = run_example(EXAMPLE)
     golden = read_raster(f"{EXAMPLE}/output/hand_class.tif")

@@ -1,71 +1,10 @@
-"""Evidence-artifact freshness gate (round-2 verdict, Missing #1 / item 9).
+"""Provenance stamps embedded in measurement records."""
 
-PARITY_TPU.json certifies the Mosaic-compiled engines on the real chip; it
-went stale in round 2 (captured four kernel revisions before HEAD) and
-nothing noticed.  This test makes that impossible: it fails whenever any
-compute-path source changed between the artifact's recorded rev and the
-current HEAD commit, with instructions to re-run the gate.
-
-The comparison is against HEAD (committed state), not the working tree, so
-in-progress edits don't block the rest of the suite — the gate binds at
-commit time: commit engine changes TOGETHER with a freshly regenerated
-PARITY_TPU.json.
-"""
-
-import json
 import os
-import subprocess
 
-import pytest
-
-from descriptools_tpu.utils import provenance
+from descriptools_jax.utils import provenance
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARTIFACT = os.path.join(REPO, "PARITY_TPU.json")
-
-
-def _head_changed_since(rev):
-    """True iff ENGINE_PATHS differ between ``rev`` and HEAD (committed
-    state only — unlike provenance.engine_sources_changed_since, which also
-    sees the working tree)."""
-    rc = subprocess.run(
-        ["git", "cat-file", "-e", f"{rev}^{{commit}}"],
-        capture_output=True, cwd=REPO,
-    ).returncode
-    if rc != 0:
-        return None
-    return (
-        subprocess.run(
-            ["git", "diff", "--quiet", rev, "HEAD", "--",
-             *provenance.ENGINE_PATHS],
-            capture_output=True, cwd=REPO,
-        ).returncode
-        != 0
-    )
-
-
-def test_parity_artifact_is_fresh_and_ok():
-    if not os.path.exists(ARTIFACT):
-        pytest.skip("no PARITY_TPU.json yet (pre-first-chip-run tree)")
-    with open(ARTIFACT) as fh:
-        art = json.load(fh)
-    assert art.get("rev"), (
-        "PARITY_TPU.json lacks a git rev stamp — regenerate with "
-        "scripts/parity_tpu.py (it embeds utils/provenance.stamp)"
-    )
-    assert art.get("ok") is True, (
-        "PARITY_TPU.json records a FAILED on-chip parity run — the flagship "
-        "engines are uncertified; fix and re-run scripts/parity_tpu.py"
-    )
-    changed = _head_changed_since(art["rev"])
-    if changed is None:
-        pytest.skip("artifact rev not in this git history")
-    assert not changed, (
-        f"compute-path sources changed since PARITY_TPU.json's rev "
-        f"{art['rev'][:12]} — the on-chip parity evidence is STALE; re-run "
-        f"scripts/parity_tpu.py on the TPU and commit the fresh artifact "
-        f"with the engine change"
-    )
 
 
 def test_stamp_fields():

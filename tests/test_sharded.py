@@ -8,18 +8,17 @@ import jax
 import numpy as np
 import pytest
 
-from descriptools_tpu import oracle
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.ops import downslope, flow_distance_index, slope
-from descriptools_tpu.parallel import (
+from descriptools_jax import oracle
+from descriptools_jax.ops import downslope, flow_distance_index, slope
+from descriptools_jax.parallel import (
     make_mesh,
     sharded_downslope,
     sharded_flow_hand,
     sharded_slope,
     sharded_suite,
 )
-from descriptools_tpu.pipeline import PipelineConfig
-from descriptools_tpu.utils.synthetic import synthetic_basin
+from descriptools_jax.pipeline import PipelineConfig
+from descriptools_jax.utils.synthetic import synthetic_basin
 
 PX = 12.5
 
@@ -58,27 +57,6 @@ def test_sharded_flow_matches_single(basin, mesh_idx):
     np.testing.assert_array_equal(np.asarray(hand), want_h)
     np.testing.assert_allclose(np.asarray(fdist), want_d, rtol=1e-4, atol=1e-2)
     np.testing.assert_allclose(np.asarray(river_fac), want_rf, rtol=1e-6)
-
-
-@pytest.mark.parametrize("engine,mesh_idx", [
-    ("pallas", 0), ("pallas", 2), ("pallas_blocked", 0),
-])
-def test_sharded_flow_pallas_engine_bitwise(basin, engine, mesh_idx):
-    """The Pallas walk tiers under shard_map (interpret mode on CPU) must be
-    bitwise on integers vs the oracle, like the XLA local phase — both the
-    VMEM-resident tier and the halo-blocked HBM tier."""
-    dem, fdr, river, fac = basin
-    mesh = meshes()[mesh_idx]
-    fdist, indices, hand, _ = sharded_flow_hand(
-        dem.astype(np.int32), fdr, river, fac.astype(np.int32), PX, mesh,
-        engine=engine, interpret=True,
-    )
-    want_d, want_i = oracle.flow_distance_index_oracle(fdr, river, PX)
-    np.testing.assert_array_equal(np.asarray(indices), want_i)
-    np.testing.assert_array_equal(
-        np.asarray(hand), oracle.hand_oracle(dem.astype(np.int32), want_i)
-    )
-    np.testing.assert_allclose(np.asarray(fdist), want_d, rtol=1e-4, atol=1e-2)
 
 
 def test_sharded_flow_uneven_pad(basin):
@@ -131,29 +109,53 @@ def test_sharded_downslope_exact_past_halo(mesh_idx):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("mesh_idx", [0, 2])
-def test_sharded_downslope_pallas_engine_bitwise(basin, mesh_idx):
-    """The VMEM Pallas downslope as the local phase under shard_map
-    (interpret mode on CPU) must match the single-device engine bitwise,
-    like the XLA local phase (round-2 verdict, item 6)."""
+FOUR = [(2, 2), (1, 4), (4, 1)]
+
+
+@pytest.mark.parametrize("mesh_shape", FOUR)
+def test_sharded_flow_four_devices_bitwise(basin, mesh_shape):
+    """The four-device meshes a four-card machine runs: indices, HAND and
+    river-fac bitwise against the single-device engines."""
+    from descriptools_jax.ops.flow import hand_and_river_fac
+
+    dem, fdr, river, fac = basin
+    dem, fac = dem.astype(np.int32), fac.astype(np.int32)
+    mesh = make_mesh(mesh_shape, devices=jax.devices()[:4])
+    fdist, indices, hand, river_fac = sharded_flow_hand(
+        dem, fdr, river, fac, PX, mesh
+    )
+    want_d, want_i = flow_distance_index(fdr, river, PX)
+    want_h, want_rf = hand_and_river_fac(dem, fac, want_i)
+    np.testing.assert_array_equal(np.asarray(indices), np.asarray(want_i))
+    np.testing.assert_array_equal(np.asarray(hand), np.asarray(want_h))
+    np.testing.assert_array_equal(np.asarray(river_fac), np.asarray(want_rf))
+    np.testing.assert_allclose(np.asarray(fdist), np.asarray(want_d),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("mesh_shape", FOUR)
+def test_sharded_downslope_four_devices_bitwise(basin, mesh_shape):
     dem, fdr, _, _ = basin
-    mesh = meshes()[mesh_idx]
-    got = np.asarray(sharded_downslope(
-        dem, fdr, PX, 5.0, mesh, halo=16, engine="pallas", interpret=True,
-    ))
+    mesh = make_mesh(mesh_shape, devices=jax.devices()[:4])
+    got = np.asarray(sharded_downslope(dem, fdr, PX, 5.0, mesh, halo=16))
     want = np.asarray(downslope(dem.astype(np.float32), fdr, PX, 5.0))
     np.testing.assert_array_equal(got, want)
 
 
-def test_sharded_downslope_pallas_trunc_retry_bitwise():
-    """Pallas local phase + the truncation-retry loop: walks far past the
-    halo must converge to the single-device result bitwise via the
-    double-offset trunc flags the kernel threads through."""
+def test_sharded_downslope_trunc_retry_at_halo_8():
+    """Walks 100+ cells long from a halo of 8: the retry loop doubles the
+    halo until no walk is cut, records every attempt, and lands bitwise on
+    the single-device result."""
     dem, fdr = _gentle_east_basin(48, 256)
-    mesh = make_mesh((1, 8))
-    got = np.asarray(sharded_downslope(
-        dem, fdr, PX, 100.0, mesh, halo=8, engine="pallas", interpret=True,
-    ))
+    mesh = make_mesh((1, 4), devices=jax.devices()[:4])
+    stats = {}
+    got = np.asarray(
+        sharded_downslope(dem, fdr, PX, 100.0, mesh, halo=8, stats=stats)
+    )
+    halos = [a["halo"] for a in stats["downslope_attempts"]]
+    assert halos[0] == 8 and len(halos) >= 2
+    assert halos == [8 * 2 ** k for k in range(len(halos))]
+    assert stats["downslope_retries"] == len(halos) - 1
     want = np.asarray(downslope(dem.astype(np.float32), fdr, PX, 100.0))
     np.testing.assert_array_equal(got, want)
 

@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from descriptools_tpu import oracle
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.ops import (
+from descriptools_jax import oracle
+from descriptools_jax.constants import NODATA
+from descriptools_jax.ops import (
     gfi_calculator,
     ln_hl_h,
     modified_topographic_index,
     slope,
     topographic_index,
 )
-from descriptools_tpu.utils.synthetic import synthetic_basin, synthetic_dem
+from descriptools_jax.utils.synthetic import synthetic_basin, synthetic_dem
 
 PX = 12.5
 

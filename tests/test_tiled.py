@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from descriptools_tpu import oracle
-from descriptools_tpu.ops import slope
-from descriptools_tpu.ops.slope import slope_from_padded
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.tiled import tile_map, tiled_flow_hand
-from descriptools_tpu.utils.synthetic import synthetic_basin
+from descriptools_jax import oracle
+from descriptools_jax.ops import slope
+from descriptools_jax.ops.slope import slope_from_padded
+from descriptools_jax.constants import NODATA
+from descriptools_jax.tiled import tile_map, tiled_flow_hand
+from descriptools_jax.utils.synthetic import synthetic_basin
 
 PX = 12.5
 
@@ -40,19 +40,3 @@ def test_tiled_flow_hand_bitwise_vs_oracle():
     np.testing.assert_allclose(
         river_fac, oracle.river_accumulation_oracle(fac, want_i), rtol=1e-6
     )
-
-
-def test_tiled_flow_hand_pallas_engine_bitwise():
-    """The per-tile Pallas walk tier (interpret mode on CPU) must be
-    integer-bitwise vs the oracle, like the XLA local phase."""
-    dem, fdr, river, fac = synthetic_basin(75, 83, seed=52)
-    dem = dem.astype(np.int32)
-    fac = fac.astype(np.int32)
-    fdist, indices, hand, _ = tiled_flow_hand(
-        dem, fdr, river, fac, PX, tile_rows=32, tile_cols=28,
-        engine="pallas", interpret=True,
-    )
-    want_d, want_i = oracle.flow_distance_index_oracle(fdr, river, PX)
-    np.testing.assert_array_equal(indices, want_i)
-    np.testing.assert_array_equal(hand, oracle.hand_oracle(dem, want_i))
-    np.testing.assert_allclose(fdist, want_d, rtol=1e-4, atol=1e-2)

@@ -8,12 +8,12 @@ stay bitwise-identical (integers) to the in-core single-device suite.
 import numpy as np
 import pytest
 
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.pipeline import PipelineConfig, descriptor_suite
-from descriptools_tpu.tiled import tiled_suite
-from descriptools_tpu.utils.synthetic import synthetic_basin, windowed_basin
+from descriptools_jax.constants import NODATA
+from descriptools_jax.pipeline import PipelineConfig, descriptor_suite
+from descriptools_jax.tiled import tiled_suite
+from descriptools_jax.utils.synthetic import synthetic_basin, windowed_basin
 
-CFG = PipelineConfig(engine="xla")
+CFG = PipelineConfig()
 
 
 def array_loaders(dem, fdr, river, fac):
@@ -82,7 +82,7 @@ def test_ridx_int32_exact_at_corner_of_2pow30_grid():
     coordinate range, where iy*h+fy ~ 32767 and ridx ~ 2^30."""
     import jax.numpy as jnp
 
-    from descriptools_tpu.parallel.boundary import local_flow_summary
+    from descriptools_jax.parallel.boundary import local_flow_summary
 
     R = C = 32768
     h = w = 64
@@ -157,7 +157,6 @@ def test_tiled_suite_link_diet_knobs_match():
     _assert_suite_matches(got, want)
     assert stats["tiles"] == 9
     assert stats["downslope_retries"] == 0
-    assert stats["downslope_engine"] == "xla"
 
 
 def test_tiled_suite_from_windowed_loaders_memmap(tmp_path):
@@ -265,7 +264,7 @@ def test_tiled_suite_downslope_trunc_retry_bitwise():
 def test_downslope_oracle_trunc_matches_oracle_full_grid():
     """The vectorized trunc-aware oracle twin must equal downslope_oracle
     on full grids (where array edge == global border)."""
-    from descriptools_tpu import oracle
+    from descriptools_jax import oracle
 
     dem, fdr, _, _ = synthetic_basin(60, 74, seed=13)
     got, trunc = oracle.downslope_oracle_trunc(dem, fdr, 12.5, 5.0)
@@ -278,7 +277,7 @@ def test_downslope_oracle_trunc_flags_window_edge_walks():
     """On a window cut from a larger grid, non-trunc cells must match the
     full-grid oracle restricted to the window; trunc cells are the ones
     whose walk left the window."""
-    from descriptools_tpu import oracle
+    from descriptools_jax import oracle
 
     dem, fdr, _, _ = synthetic_basin(90, 90, seed=14)
     full = oracle.downslope_oracle(dem, fdr, 12.5, 5.0)
@@ -294,8 +293,8 @@ def test_downslope_oracle_trunc_flags_window_edge_walks():
 def test_tiled_classify_flood_matches_host_classifier():
     """Streaming calibration must select the identical float64 threshold
     and produce the identical class map as pipeline.classify_flood."""
-    from descriptools_tpu.pipeline import classify_flood
-    from descriptools_tpu.tiled import tiled_classify_flood
+    from descriptools_jax.pipeline import classify_flood
+    from descriptools_jax.tiled import tiled_classify_flood
 
     rows, cols = 96, 112
     loaders = windowed_basin(rows, cols, seed=7)
@@ -318,7 +317,7 @@ def test_tiled_classify_flood_rejects_invalid_hand_values():
     fail with the intended ValueError BEFORE reaching np.bincount, which
     would otherwise raise a cryptic negative-element error or allocate
     O(max-value) memory (round-5 review finding)."""
-    from descriptools_tpu.tiled import tiled_classify_flood
+    from descriptools_jax.tiled import tiled_classify_flood
 
     rows, cols = 64, 64
     rng = np.random.default_rng(3)

@@ -1,4 +1,4 @@
-"""Streaming full-coverage flow invariants (descriptools_tpu/verify.py):
+"""Streaming full-coverage flow invariants (descriptools_jax/verify.py):
 the 1e9-cell certificate that replaces 0.026 % oracle sampling (round-4
 verdict, Missing #1).  Correct outputs must verify clean on every cell;
 single corrupted cells anywhere must be caught."""
@@ -6,12 +6,12 @@ single corrupted cells anywhere must be caught."""
 import numpy as np
 import pytest
 
-from descriptools_tpu.constants import NODATA
-from descriptools_tpu.pipeline import PipelineConfig, descriptor_suite
-from descriptools_tpu.utils.synthetic import synthetic_basin
-from descriptools_tpu.verify import streaming_flow_invariants
+from descriptools_jax.constants import NODATA
+from descriptools_jax.pipeline import PipelineConfig, descriptor_suite
+from descriptools_jax.utils.synthetic import synthetic_basin
+from descriptools_jax.verify import streaming_flow_invariants
 
-CFG = PipelineConfig(engine="xla")
+CFG = PipelineConfig()
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +68,8 @@ def test_single_cell_corruption_detected(suite, key, delta, check):
 def test_tiled_suite_outputs_verify_clean(tmp_path):
     """The config-5 composition in miniature: loader-fed out-of-core suite
     -> memmap outputs -> the streaming verifier passes every cell."""
-    from descriptools_tpu.tiled import tiled_suite
-    from descriptools_tpu.utils.synthetic import windowed_basin
+    from descriptools_jax.tiled import tiled_suite
+    from descriptools_jax.utils.synthetic import windowed_basin
 
     rows, cols = 96, 112
     loaders = windowed_basin(rows, cols, seed=13)
